@@ -1,9 +1,9 @@
-"""frei_tpu: TPU-native radiative transfer for exoplanet inference.
+"""frei_tpu: accelerator-native radiative transfer for exoplanet inference.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference package ``bmorris3/frei`` (two-stream emission spectra of
 exoplanet atmospheres iterated to radiative-convective equilibrium),
-redesigned TPU-first: unitless CGS arrays on device, layer sweeps as
+redesigned for batched accelerators: unitless CGS arrays on device, layer sweeps as
 associative scans under jit, hoisted batched chemistry/opacity lookups,
 and column/spectral-bin sharding over device meshes.
 

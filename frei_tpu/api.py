@@ -280,8 +280,8 @@ class Grid:
                 self.dtype),
         )
         # Single shared wiring of the hot-loop kappa/chemistry model
-        # (layer-factored tables + Pallas engine hooks) — see
-        # opacity/hotpath.py for why this must not be hand-rolled.
+        # (layer-factored tables) — see opacity/hotpath.py for why this
+        # must not be hand-rolled.
         from .opacity.hotpath import build_kappa_model
         self._kappa_fn = build_kappa_model(
             stack, self.chemistry, self._consts.pressures,
@@ -348,9 +348,9 @@ class Grid:
         ----------
         init_temps : (C, L) array-like
             Initial temperature profile per column [K].
-        engine : "auto" | "pallas" | "xla" | "pallas-interpret"
-            Sweep engine (see ``SolverConfig.engine``); "auto" uses the
-            fused Pallas kernels on TPU.
+        engine : "auto" | "xla"
+            Sweep engine (see ``SolverConfig.engine``); both run the
+            XLA sweeps.
         init_fluxes : optional ((C, L, W), (C, L, W)) pair
             Warm-start flux state for resuming a checkpointed solve
             (``frei_tpu.io.checkpoint.resume_state``).

@@ -36,7 +36,7 @@ log-residual Newton, convex-dual damped Newton with row scaling;
 both stall on ultra-stable multi-trace-element species like Na3AlF6).
 
 The solver is exact but iterative (~30-60 sweeps cold, ~5 warm); for
-the TPU hot loop :class:`FastChemJAX` defaults to ``mode='table'``,
+the solver hot loop :class:`FastChemJAX` defaults to ``mode='table'``,
 which precomputes log-VMRs on a dense (log T, log P) grid at load time
 with the float64 exact solver and does a cheap fused bilinear lookup
 on device — the same "chemistry leaves the critical path" design as
@@ -182,6 +182,13 @@ def _clip_interp_axis(coord, x):
     return i, f
 
 
+def _dot(a, b):
+    """Matrix product at full float32 precision: without the pin a GPU
+    may run it in TF32 (about three decimal digits), which the Newton
+    steps on log-pressures cannot absorb."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def _prepare_static(table: ChemTable):
     """Host-side preprocessing shared by every solve (cheap numpy
     work, recomputed per call; the jitted solve below is the cached
@@ -227,7 +234,7 @@ def _gs_solve(nu, eps, coeffs, order, ie, T, P_bar, z0,
     def electron(lam):
         """Exact charge balance for +-1 gas charges: p_e^2 (1 + sum
         anions/p_e-part) = sum cations-part."""
-        y_no_e = lnK + lam @ nu.T - jnp.outer(lam[:, ie], nu_e)
+        y_no_e = lnK + _dot(lam, nu.T) - jnp.outer(lam[:, ie], nu_e)
         lse_cat = _masked_lse(y_no_e, is_cat[None, :])
         t_an = jnp.concatenate(
             [jnp.zeros((B, 1), dtype), y_no_e], axis=1)
@@ -239,7 +246,7 @@ def _gs_solve(nu, eps, coeffs, order, ie, T, P_bar, z0,
 
     def gs_sweep(carry, _):
         lam, m = carry
-        y = lnK + lam @ nu.T                              # (B, S)
+        y = lnK + _dot(lam, nu.T)                              # (B, S)
 
         def element_body(k, state):
             lam, y = state
@@ -258,7 +265,7 @@ def _gs_solve(nu, eps, coeffs, order, ie, T, P_bar, z0,
                      jnp.broadcast_to(mask_j[None, :], (B, S))], axis=1)
                 t = _masked_lse(terms, mask)
                 w = jnp.where(mask, jnp.exp(terms - t[:, None]), 0.0)
-                slope = w[:, 0] + w[:, 1:] @ nu_j
+                slope = w[:, 0] + _dot(w[:, 1:], nu_j)
                 return xj - (t - target) / jnp.maximum(slope, 0.5)
 
             xj = jax.lax.fori_loop(0, n_inner, newton_1d, lam[:, j])
@@ -269,7 +276,7 @@ def _gs_solve(nu, eps, coeffs, order, ie, T, P_bar, z0,
         lam, y = jax.lax.fori_loop(0, order.shape[0], element_body,
                                    (lam, y))
         lam = lam.at[:, ie].set(electron(lam))
-        y = lnK + lam @ nu.T
+        y = lnK + _dot(lam, nu.T)
 
         # total-pressure residual and secant update on m
         t_all = jnp.concatenate([lam, y], axis=1)
@@ -279,7 +286,7 @@ def _gs_solve(nu, eps, coeffs, order, ie, T, P_bar, z0,
 
     (lam, m), r_hist = jax.lax.scan(gs_sweep, (lam0, m0),
                                     None, length=n_sweeps)
-    y = lnK + lam @ nu.T
+    y = lnK + _dot(lam, nu.T)
     ln_p = jnp.concatenate([lam, y], axis=1)
     z = jnp.concatenate([lam, m[:, None]], axis=1)
     return ln_p, z, r_hist
@@ -497,14 +504,11 @@ class FastChemJAX:
 
         Why this exists: :meth:`_vmr_from_table` re-does the
         pressure-axis searchsorted and four 2-D fancy-index gathers on
-        (batch, L)-shaped indices EVERY solver iteration — on TPU
-        those gathers lower to slow dynamic-slice loops that measured
-        0.33 s of a 0.71 s chemistry-in-loop solve (8 XLA fusions x
-        20 iterations, tools/profile_solve.py).  Here the P axis is
-        interpolated ONCE onto the static layer pressures
+        (batch, L)-shaped indices EVERY solver iteration.  Here the P
+        axis is interpolated ONCE onto the static layer pressures
         (:meth:`layer_ln_mmr_tables`), leaving a per-iteration 1-D
         logT interpolation expressed as a one-hot contraction — the
-        same gather-free MXU pattern as the kappa table lookup
+        same gather-free pattern as the kappa table lookup
         (opacity/tables.py `layer_interp_weights`).  Temperatures are
         CLAMPED to the table range (matching ``_vmr_from_table``'s
         clip, not the opacity tables' zero-fill)."""

@@ -5,20 +5,22 @@ The reference's only observability is a tqdm progress bar with a
 (`/root/reference/frei/core.py:269-271,312-315`).  frei_tpu keeps that
 signal — streamed out of the jitted while-loop with
 ``jax.debug.callback`` — and adds structured per-solve metrics, a
-``jax.profiler`` trace context, and a NaN-debugging toggle.
+``jax.profiler`` trace context, a NaN-debugging toggle, and the
+persistent compilation cache setting of the run scripts.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 from dataclasses import dataclass
+from pathlib import Path
 
 import jax
 import numpy as np
 
 __all__ = ["SolveMetrics", "flux_balance", "progress_printer",
-           "profile_trace",
-           "enable_nan_debugging"]
+           "profile_trace", "enable_nan_debugging", "use_compile_cache"]
 
 
 @dataclass
@@ -124,3 +126,20 @@ def enable_nan_debugging(enable: bool = True):
     reference's race-condition surface does not exist (SURVEY.md
     section 5); NaN provenance is the useful debug axis instead."""
     jax.config.update("jax_debug_nans", enable)
+
+
+def use_compile_cache(default_dir) -> str:
+    """Keep JAX's persistent compilation cache in one fixed directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself
+    and this sets nothing.  Otherwise the cache goes to
+    ``default_dir``, which callers fix (never a temporary, per-process
+    or timed name: a cache whose path moves between runs never hits).
+    Call before the first compilation; importing the package does not.
+    Returns the directory in use."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = str(Path(default_dir).resolve())
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -89,8 +89,7 @@ def trapezoid_weights(x):
     The reference integrates bolometric fluxes with ``np.trapz``
     (`frei/twostream.py:16-20`) inside the per-layer loop.  Expressing
     the trapezoid rule as a dot product turns every bolometric integral
-    of a batch of spectra into a single matrix-vector product that XLA
-    maps onto the MXU.
+    of a batch of spectra into a single matrix-vector product.
     """
     x = np.asarray(x, dtype=np.float64)
     dx = np.diff(x)

@@ -10,7 +10,7 @@ dependency; plain ``extern "C"`` + ctypes), threaded over table rows.
 
 The native path matters for the ETL of multi-GB opacity stores on
 hosts where the accelerator is busy with the solve: ingest and rebin
-stream through CPU threads while the TPU runs columns.
+stream through CPU threads while the accelerator runs columns.
 """
 
 from __future__ import annotations

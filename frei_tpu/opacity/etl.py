@@ -15,10 +15,9 @@ Differences by design: the store is a directory of memmap-able ``.npy``
 files plus ``meta.json`` instead of zlib netCDF (no xarray/netCDF4
 dependency; the cube streams in (T, P)-row chunks through the device
 rebin kernel instead of loading multi-GB arrays), the heavy inner
-reduction runs on the TPU (``frei_tpu.ops.rebin``/``rebin_pallas``) or
-through the native C++ kernel (``frei_tpu.native``) for host-only
-environments, and binned results are disk-cached keyed by the grid
-fingerprint (``frei_tpu.io.cache``).
+reduction runs through the native C++ kernel (``frei_tpu.native``) or
+on the device (``frei_tpu.ops.rebin``), and binned results are
+disk-cached keyed by the grid fingerprint (``frei_tpu.io.cache``).
 """
 
 from __future__ import annotations
@@ -305,22 +304,8 @@ def _rebin_store(store: OpacityStore, rt_grid: RTGrid, engine: str,
         from ..native import grouped_trapezoid_native
         def rebin_rows(rows):
             return grouped_trapezoid_native(rows, wav_c, edges_um)
-    elif engine == "pallas":
-        import jax.numpy as jnp
-        from ..ops.rebin import bin_codes_np
-        from ..ops.rebin_pallas import resort_rebin_pallas
-        # bin assignment + panel widths on the float64 host
-        # coordinates: a float32 device x misassigns edge-adjacent
-        # samples and loses panel-width precision (ops/rebin.py)
-        codes_d = jnp.asarray(bin_codes_np(wav_c, edges_um))
-        dx_d = jnp.asarray(np.diff(np.asarray(wav_c, np.float64)),
-                           jnp.float32)
-        def rebin_rows(rows):
-            return np.asarray(resort_rebin_pallas(
-                jnp.asarray(rows), jnp.asarray(wav_c),
-                jnp.asarray(edges_um), codes=codes_d, dx=dx_d))
     elif engine == "matmul":
-        # block-banded MXU formulation: x/edges are static here, so
+        # block-banded matmul formulation: x/edges are static here, so
         # the scatter-free factory is built once per store and reused
         # across the row chunks (see ops/rebin_matmul.py)
         import jax
@@ -402,7 +387,7 @@ def _rebin_store(store: OpacityStore, rt_grid: RTGrid, engine: str,
 
 
 #: the resort-rebin device/host kernels (docs/opacities.md)
-_REBIN_ENGINES = {"xla", "native", "pallas", "matmul"}
+_REBIN_ENGINES = {"xla", "native", "matmul"}
 
 
 def resolve_rebin_engine(engine: str = "auto") -> str:
@@ -410,16 +395,10 @@ def resolve_rebin_engine(engine: str = "auto") -> str:
     the portable XLA path when no toolchain is available.
 
     The ETL is a HOST-streaming pipeline — it reads a memmapped
-    line-list store chunk by chunk — so the production winner is
-    decided by where the data already is, not by kernel speed.
-    Measured on the round-4 chip session (docs/opacities.md): the
-    full streamed rebin of a 0.4 GB cube takes 0.55 s with the C++
-    engine vs 15.2 s (xla) / 23.2 s (matmul) on the hosted TPU, where
-    every chunk pays a host->device transfer that dwarfs the kernel
-    (the on-device xla kernel alone runs at ~72 Gsamples/s once the
-    data is resident — 130x the C++ engine — which is why the
-    device engines stay available for device-resident callers, but
-    `auto` never picks them for the streamed ETL).  Explicit engine
+    line-list store chunk by chunk — so every chunk a device engine
+    rebins first pays a host->device transfer; the device engines stay
+    available for device-resident callers.  Whether a device engine
+    wins on an accelerator host is not measured.  Explicit engine
     names are validated (a typo must not silently run the slowest
     path)."""
     if engine != "auto":
@@ -442,12 +421,10 @@ def binned_opacity_tables(rt_grid: RTGrid, species=None, path=None,
     Equivalent of the reference ``binned_opacity`` (`opacity.py:66-170`)
     with device kernels and a binned-result disk cache.
 
-    ``engine``: "auto" (threaded C++ everywhere — measured rationale
-    in :func:`resolve_rebin_engine`), "xla" (segment-sum, any
-    backend; ~HBM roofline once data is device-resident), "matmul"
-    (scatter-free block-banded formulation — kept opt-in, measured
-    slower than the segment-sum it was built to replace), "pallas"
-    (TPU kernel), or "native" (threaded C++).
+    ``engine``: "auto" (threaded C++ everywhere — rationale in
+    :func:`resolve_rebin_engine`), "xla" (segment-sum, any backend),
+    "matmul" (scatter-free block-banded formulation — kept opt-in), or
+    "native" (threaded C++).
 
     ``path``: a directory containing ``*.ftop`` stores or a glob
     pattern over store paths (default: the user store dir).

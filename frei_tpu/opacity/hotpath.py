@@ -1,15 +1,10 @@
 """The one place the hot-loop kappa model is wired.
 
-Every solver entry point (``api.Grid._build_solver_inputs``,
-``parallel.solve_ensemble`` and its in-shard rebuild) used to hand-roll
-the same closure stack: layer-factored opacity tables, the hot-loop
-chemistry evaluator, and the ``layer_parts`` / ``iteration_hook``
-attributes the fused Pallas engines key on.  A missed attribute in one
-copy silently demoted that entry point to the gather path — exactly the
-1.93x chemistry-in-loop regression class fixed in round 3.  This module
-is now the single definition; a guard test
-(tests/test_hotpath.py) asserts every entry point advertises the
-factored hooks whenever the chemistry supports them.
+Every solver entry point (``api.Grid._build_solver_inputs`` and
+``parallel.solve_ensemble``) needs the same closure stack:
+layer-factored opacity tables plus the hot-loop chemistry evaluator.
+This module is the single definition; tests/test_hotpath.py asserts
+that every entry point routes through it.
 
 Replaces the reference's per-call ``kappa`` recomputation
 (`frei/opacity.py:219-254`), which re-runs FastChem and re-interpolates
@@ -19,61 +14,10 @@ the (T, P) grids inside every sweep.
 from __future__ import annotations
 
 from ..chemistry.fastchem import hot_loop_mmr_fn
-from .tables import (LayerKappaTables, OpacityStack, kappa_from_layer_tables,
-                     kappa_from_stack, layer_interp_weights,
+from .tables import (OpacityStack, kappa_from_layer_tables, kappa_from_stack,
                      make_layer_tables)
 
-__all__ = ["build_kappa_model", "kappa_model_from_layer_tables"]
-
-
-def _supports_iteration_hook(chem) -> bool:
-    """Explicit capability check for the whole-iteration kernels:
-    ``supports_layer_factoring()`` when the model defines it (e.g.
-    FastChemJAX — True only in table mode), else the presence of
-    ``layer_ln_mmr_tables`` (e.g. MockChemistry)."""
-    probe = getattr(chem, "supports_layer_factoring", None)
-    if probe is not None:
-        return bool(probe())
-    return hasattr(chem, "layer_ln_mmr_tables")
-
-
-def kappa_model_from_layer_tables(lt: LayerKappaTables, mmr_fn, chem,
-                                  sigma_scat):
-    """Kappa closure over prebuilt layer tables, hooks attached.
-
-    Split out from :func:`build_kappa_model` because sharded solves
-    rebuild the closure per shard over the local table slice
-    (``lt._replace(tab=tab_shard)``) — closures may not capture
-    sharded arrays across a ``shard_map`` boundary.
-    """
-
-    def kappa_all(temps, pressures):
-        del pressures  # fixed to the layer grid by design
-        k, _ = kappa_from_layer_tables(lt, mmr_fn(temps), temps,
-                                       sigma_scat)
-        return k
-
-    def _ohs(temps, layer_major=False):
-        return layer_interp_weights(lt, mmr_fn(temps), temps,
-                                    layer_major=layer_major)
-
-    # fused-kappa hook for the Pallas sweep kernels; NOTE the kernels
-    # add sigma themselves, so the weights exclude it
-    kappa_all.layer_parts = (_ohs, lt.tab)
-    # whole-iteration kernel hook (ops.iteration_pallas) — only when
-    # the chemistry can actually serve it (make_iteration_pack calls
-    # chem.layer_ln_mmr_tables).  Attaching it unconditionally would
-    # defeat rt/solver's descriptive `hook is None` guards: an
-    # exact-mode FastChemJAX would pass them and then die inside the
-    # kernel pack build with a bare AttributeError.
-    kappa_all.iteration_hook = (
-        (lt.temps, lt.tab, chem) if _supports_iteration_hook(chem)
-        else None)
-    # rebuild ingredients for sharded callers
-    kappa_all.layer_tables = lt
-    kappa_all.mmr_fn = mmr_fn
-    kappa_all.chem = chem
-    return kappa_all
+__all__ = ["build_kappa_model"]
 
 
 def build_kappa_model(stack: OpacityStack, chem, pressures, sigma_scat):
@@ -81,23 +25,25 @@ def build_kappa_model(stack: OpacityStack, chem, pressures, sigma_scat):
 
     Multi-T-point stacks get the layer-factored fast path: the
     P-interpolation is hoisted onto the fixed layer pressure grid once
-    (:func:`make_layer_tables`), chemistry becomes a gather-free
+    (:func:`make_layer_tables`) and chemistry becomes a gather-free
     one-hot T-contraction when the model supports it
-    (:func:`hot_loop_mmr_fn`), and the returned closure carries the
-    ``layer_parts`` / ``iteration_hook`` attributes that route the
-    fused Pallas engines.  Single-T-point stacks (no T axis to
-    factor) fall back to the generic ``kappa_from_stack`` path.
+    (:func:`hot_loop_mmr_fn`).  Single-T-point stacks (no T axis to
+    factor) use the generic ``kappa_from_stack`` path.
     """
     if stack.values.shape[1] > 1:
         lt = make_layer_tables(stack, pressures)
         mmr_fn = hot_loop_mmr_fn(chem, pressures)
-        return kappa_model_from_layer_tables(lt, mmr_fn, chem, sigma_scat)
+
+        def kappa_all(temps, pressures_in):
+            del pressures_in  # fixed to the layer grid by design
+            k, _ = kappa_from_layer_tables(lt, mmr_fn(temps), temps,
+                                           sigma_scat)
+            return k
+        return kappa_all
 
     def kappa_all(temps, pressures_in):
         mmr = chem.mmr(temps, pressures_in)
         k, _ = kappa_from_stack(stack, mmr, temps, pressures_in,
                                 sigma_scat)
         return k
-
-    kappa_all.chem = chem
     return kappa_all

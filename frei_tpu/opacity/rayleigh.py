@@ -5,7 +5,8 @@ Eq. 16/17, Deitrick 2020 Eq. C3).  Computed on the HOST in float64:
 the scattering opacity depends only on the static wavelength grid and
 the mean molecular weight, so it is a per-configuration constant — and
 the naive expression contains intermediates like ``1 / n_ref**2``
-(~1.4e-39) that underflow float32 and would be flushed to zero on TPU.
+(~1.4e-39) that underflow float32 and are flushed to zero by devices
+that do not keep float32 denormals.
 The host-precomputed (W,) vector is shipped to device once.
 """
 

@@ -17,12 +17,11 @@ exactly here:
 * the reference then multiplies by the bin width and 1e-3
   (`opacity.py:137-139`).
 
-On TPU this is a masked segment-sum over the pair axis — one XLA op
-batched over the (T, P) table axes.  (NOT flagged
+On the device this is a masked segment-sum over the pair axis — one
+XLA op batched over the (T, P) table axes.  (NOT flagged
 ``indices_are_sorted``: dropped straddle panels are parked in the
 out-of-range segment BETWEEN in-order codes, so the id sequence is
 not sorted and the hint would let a scatter lowering misplace sums.)
-A Pallas kernel version lives in ``frei_tpu.ops.rebin_pallas``.
 """
 
 from __future__ import annotations
@@ -130,7 +129,7 @@ def grouped_aggregate(values, x, edges, op: str = "trapz", *,
     (`/root/reference/frei/interp.py:223-243`).  This is the same
     surface in XLA: one segment-reduction primitive parameterized by
     ``op`` in {"trapz", "sum", "mean", "max", "min", "count"}, batched
-    over leading axes, jit/vmap friendly on CPU and TPU.
+    over leading axes, jit/vmap friendly on every backend.
 
     ``trapz`` uses the pair-within-bin semantics of
     :func:`resort_rebin`; the others aggregate the per-sample values

@@ -1,19 +1,15 @@
 """Block-banded matmul formulation of the resort-rebin.
 
-**MEASURED NEGATIVE RESULT — opt-in engine, never chosen by "auto".**
-This engine was built on the premise that XLA's segment-sum scatter
-crawls on TPU.  The round-4 chip session refuted that premise: the
-bin codes are sorted and dense, XLA lowers the segment-sum at ~HBM
-roofline (**72 Gsamples/s** device-resident), and this matmul engine
-measures **0.57 Gsamples/s — 130x slower** than the op it was
-designed to replace (`docs/opacities.md`, `docs/design-notes.md`).
-It is kept as a documented negative result with its parity tests in
-the slow lane; do not re-promote it without a new measurement.
+**Opt-in engine, never chosen by "auto".**  It was built on the
+premise that XLA's segment-sum scatter is slow; with sorted, dense bin
+codes the segment-sum is not, and this engine is kept as a documented
+negative result with its parity tests in the slow lane.  Whether it
+beats the segment-sum on the GPU is not measured.
 
-The original (refuted-for-this-op) reasoning: the reference's rebin
+The reasoning: the reference's rebin
 (`/root/reference/frei/interp.py:156-202`) is a scatter — each
 trapezoid panel accumulates into its bin — and scatters often
-serialize on TPU.
+serialize on accelerators.
 
 But the scatter is an illusion of generality: in every real call the
 sample coordinates ``x`` and the bin ``edges`` are fixed per
@@ -28,10 +24,10 @@ where ``W`` has at most one nonzero per row: sample ``j`` contributes
 all — a panel is kept only if BOTH its samples share a bin).  Because
 ``x`` is ascending, ``W`` is block-banded: a contiguous run of samples
 maps to a contiguous run of bins.  This module evaluates the map as a
-``lax.scan`` of small dense MXU matmuls — one (rows, K) @ (K, S) dot
+``lax.scan`` of small dense matmuls — one (rows, K) @ (K, S) dot
 per sample tile against an on-the-fly one-hot-times-weight slab, with
 per-tile partial bins combined by static-offset adds.  No scatter
-anywhere; the MXU does the aggregation.
+anywhere; the matrix unit does the aggregation.
 
 Semantics are bit-compatible with :func:`frei_tpu.ops.rebin.
 resort_rebin` up to float32 summation order (verified in
@@ -76,7 +72,7 @@ def make_resort_rebin_matmul(x, edges, *, tile=None, span_pad=None):
     tile : samples per matmul tile.  Default: sized so a tile spans
         ~96 bins, clamped to [4096, 131072] and rounded to 512.
     span_pad : bins per tile (padded); default: the measured maximum
-        span rounded up to a multiple of 128 (TPU lane width).
+        span rounded up to a multiple of 128.
 
     Returns
     -------

@@ -32,11 +32,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 
 __all__ = ["e_correction", "TwoStreamCouplers", "two_stream_couplers",
-           "two_stream_couplers_g0", "propagate_fluxes"]
+           "propagate_fluxes"]
 
 
 def e_correction(omega_0, g_0):
@@ -70,36 +69,7 @@ class TwoStreamCouplers(NamedTuple):
     s_down: jnp.ndarray   # downward thermal source term [flux]
 
 
-def expm1_series(x):
-    """``expm1`` built from primitives Mosaic can lower (it has no
-    ``expm1``): a 9-term Horner series for |x| < 0.5 (relative error
-    ~3e-10, below float32 roundoff), ``exp(x) - 1`` otherwise (safe —
-    no catastrophic cancellation once |x| >= 0.5).  Used by the Pallas
-    sweep kernels; the XLA path keeps ``jnp.expm1``.
-
-    The Horner steps multiply by precomputed reciprocal constants
-    instead of dividing: neither XLA nor Mosaic folds ``x / 9.0`` into
-    a multiply on its own, and on the TPU VPU a divide costs several
-    multiplies — this function sits twice in the per-layer inner loop
-    of the sweep kernels.  The reciprocals are exact double-precision
-    constants; the induced per-term perturbation (<= 0.5 ulp of the
-    coefficient) is far below the series' own truncation error.
-    """
-    small = jnp.abs(x) < 0.5
-    xs = jnp.where(small, x, 0.0)
-    p = xs * (1.0 / 9.0) + 1.0
-    p = p * xs * (1.0 / 8.0) + 1.0
-    p = p * xs * (1.0 / 7.0) + 1.0
-    p = p * xs * (1.0 / 6.0) + 1.0
-    p = p * xs * (1.0 / 5.0) + 1.0
-    p = p * xs * (1.0 / 4.0) + 1.0
-    p = p * xs * (1.0 / 3.0) + 1.0
-    p = p * xs * (1.0 / 2.0) + 1.0
-    return jnp.where(small, xs * p, jnp.exp(x) - 1.0)
-
-
-def two_stream_couplers(delta_tau, omega_0, B1, B2, g_0=0.0,
-                        expm1=jnp.expm1):
+def two_stream_couplers(delta_tau, omega_0, B1, B2, g_0=0.0):
     """Compute the affine two-stream couplers for a set of layers.
 
     Parameters
@@ -137,7 +107,7 @@ def two_stream_couplers(delta_tau, omega_0, B1, B2, g_0=0.0,
     zp = 0.5 * (1.0 + ratio)
     zm = 0.5 * (1.0 - ratio)
 
-    em = expm1(-2.0 * k_hat * delta_tau)          # = T - 1, in (-1, 0]
+    em = jnp.expm1(-2.0 * k_hat * delta_tau)      # = T - 1, in (-1, 0]
     T = 1.0 + em                                   # transmission
 
     zmT_zp = zm * T + zp                           # zm*T + zp
@@ -163,59 +133,6 @@ def two_stream_couplers(delta_tau, omega_0, B1, B2, g_0=0.0,
         b=xi * inv_chi,
         s_up=s_up_raw * inv_chi,
         s_down=s_down_raw * inv_chi,
-    )
-
-
-def two_stream_couplers_g0(delta_tau, omega_0, B1, B2,
-                           expm1=jnp.expm1):
-    """``two_stream_couplers`` specialized to ``g_0 = 0`` (the only
-    value the reference ever uses, `twostream.py:389,518`) and
-    restructured for the TPU VPU: the same real-arithmetic results with
-    3 divides + 1 rsqrt + 1 exp per element instead of 6 divides +
-    2 sqrt + 1 exp.
-
-    Algebra (all exact in real arithmetic; cross-checked against the
-    general form in ``tests/test_twostream.py``):
-
-    * ``one_m_wg == 1`` drops out everywhere;
-    * with ``s = rsqrt(E (E - w0))``: ``k_hat = E (E - w0) s``,
-      ``ratio = sqrt((E-w0)/E) = (E - w0) s``, and the source-term
-      denominator ``1 / (2 E) = s^2 (E - w0) / 2`` — one rsqrt
-      replaces {sqrt, sqrt, 1/E};
-    * ``pi_term / chi = pi (1 - w0) * inv_dchi`` and ``1 / chi =
-      (E - w0) * inv_dchi`` with ``inv_dchi = 1 / ((E - w0) chi)`` —
-      one divide serves both.
-    """
-    E = e_correction(omega_0, 0.0)
-    d = E - omega_0
-    s = jax.lax.rsqrt(E * d)
-    k_hat = E * d * s
-    ratio = d * s
-    zp = 0.5 * (1.0 + ratio)
-    zm = 0.5 * (1.0 - ratio)
-
-    em = expm1(-2.0 * k_hat * delta_tau)          # = T - 1, in (-1, 0]
-    T = 1.0 + em
-
-    zmT_zp = zm * T + zp
-    chi = (zm * T - zp) * zmT_zp                   # < 0 always
-    psi = (zm - zp) * T
-    chi_p_xi = (zm - zp) * (zm * T ** 2 + zp)      # chi + xi
-
-    # grad = (B1-B2) * (em/dtau) * zmT_zp / (2 E); 1/(2E) = s^2 d / 2
-    grad = (B1 - B2) * (em / delta_tau) * zmT_zp * (0.5 * s * s * d)
-    s_up_raw = B2 * chi_p_xi - psi * B1 + grad
-    s_down_raw = B1 * chi_p_xi - psi * B2 - grad
-
-    inv_dchi = 1.0 / (d * chi)
-    inv_chi = d * inv_dchi
-    pi_scale = (jnp.pi * (1.0 - omega_0)) * inv_dchi
-    xi = chi_p_xi - chi
-    return TwoStreamCouplers(
-        a=psi * inv_chi,
-        b=xi * inv_chi,
-        s_up=s_up_raw * pi_scale,
-        s_down=s_down_raw * pi_scale,
     )
 
 

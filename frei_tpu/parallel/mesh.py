@@ -12,7 +12,7 @@ solve is domain-decomposed over a 2-D logical mesh
   ONLY cross-bin coupling in the entire solver is the bolometric
   integral entering the temperature tendency (the reference's
   ``np.trapz`` at `twostream.py:16-20,396-400`), which under GSPMD
-  becomes a single psum of partial dot products per sweep, riding ICI.
+  becomes a single psum of partial dot products per sweep.
 
 The reference's only distribution mechanism was a vestigial, orphaned
 dask path (`core.py:22-31`, `opacity.py:45-63`); this mesh replaces it
@@ -41,7 +41,8 @@ def make_mesh(n_columns: Optional[int] = None, n_bins: int = 1,
     Defaults to all devices on the columns axis (the right choice for
     large ensembles: zero-collective scaling).  Put devices on the
     bins axis only when a single column's spectral grid is too large
-    or too slow per chip.
+    or too slow per device.  The layout follows the algorithm alone:
+    no device topology is assumed.
     """
     if devices is None:
         devices = jax.devices()

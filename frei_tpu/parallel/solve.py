@@ -10,9 +10,9 @@ requires across the bins axis (see frei_tpu.parallel.mesh).
 Multi-host: call :func:`initialize_distributed` first (wraps
 ``jax.distributed.initialize``), then build the mesh over
 ``jax.devices()`` as usual — data placement and collectives are
-identical, with cross-host traffic riding DCN only for the bins axis
-if it spans hosts (keep bins shards within a host: columns-major mesh
-order does this by construction).
+identical, with cross-host traffic only for the bins axis if it spans
+hosts (keep bins shards within a host: columns-major mesh order does
+this by construction).
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ class _ReuseCache:
 
     The failure mode of identity keying is SILENT: a loop that
     rebuilds ``Grid`` / ``RTConstants`` per step misses every time and
-    pays a full XLA compile (~30-90 s on TPU) per iteration.  A miss
+    pays a full XLA compile per iteration.  A miss
     whose value-keyed parts (cfg/mesh) AND array shapes equal a
     cached entry — the caller rebuilt equal input objects — logs a
     WARNING naming the reuse contract; hit/miss counters are exposed
@@ -156,8 +156,8 @@ class _ReuseCache:
                 "%s reuse-cache MISS #%d (hits=%d): same cfg/mesh "
                 "and input shapes as a cached solver, but the "
                 "identity-keyed input objects are not the SAME "
-                "objects — recompiling the sharded solve (~30-90 s "
-                "on TPU). Build the inputs once outside the loop and "
+                "objects — recompiling the sharded solve. Build the "
+                "inputs once outside the loop and "
                 "pass the same objects to reuse (docs/retrieval.md).",
                 self.name, self.misses, self.hits)
         return None
@@ -228,12 +228,10 @@ def solve_ensemble(
     rest keep iterating (identical per-column trajectories to
     single-column runs).
 
-    Engines (``cfg.engine``): Pallas engines run per shard under
-    ``shard_map`` -- the columns axis needs no collectives, and on a
-    bins-sharded mesh the sweep kernels emit per-shard partial
-    bolometric quadratures that one psum per sweep completes across
-    ``bins`` (the scheme's only cross-bin collective, riding ICI).
-    The XLA engine runs under GSPMD, which inserts the same psum.
+    The vmapped per-column solve runs under GSPMD: the columns axis
+    needs no collectives, and on a bins-sharded mesh XLA inserts one
+    psum per sweep for the bolometric quadrature (the scheme's only
+    cross-bin collective).
 
     Repeat calls with the SAME consts / params / stack / chem objects
     (and equal cfg / mesh) reuse the placed tables and the compiled
@@ -254,97 +252,24 @@ def solve_ensemble(
 
 def _build_ensemble_solver(consts, params, stack, chem, cfg, mesh):
     """One-time construction for :func:`solve_ensemble`: input
-    placement, hot-loop kappa wiring, the shard_map closure, and the
-    jitted entry — returns ``solve(init_temps) -> RTResult``."""
-    from ..rt.solver import _resolve_engine, solve_rc_batched
-
-    consts, stack = shard_solver_inputs(mesh, consts, stack)
-
-    # Same shared hot-loop wiring as api.Grid (layer-factored tables +
-    # engine hooks when the stack/chemistry support them; the chem
-    # tables are replicated, so the factored closure is shard-safe).
+    placement, hot-loop kappa wiring and the jitted GSPMD entry —
+    returns ``solve(init_temps) -> RTResult``."""
     from ..opacity.hotpath import build_kappa_model
+    from ..rt.solver import _check_engine
+
+    _check_engine(cfg.engine)
+    consts, stack = shard_solver_inputs(mesh, consts, stack)
+    # Same shared hot-loop wiring as api.Grid (the chem tables are
+    # replicated, so the factored closure is shard-safe).
     kappa_all = build_kappa_model(stack, chem, consts.pressures,
                                   consts.sigma_scat)
-    lt = getattr(kappa_all, "layer_tables", None)
-
     cols = NamedSharding(mesh, P(COLUMNS))
-
-    def _place(init_temps):
-        return jax.device_put(jnp.asarray(init_temps), cols)
-
-    engine = _resolve_engine(cfg.engine, cfg.differentiable)
-    n_bins_shards = mesh.shape[BINS]
-    if engine.startswith("pallas") and (n_bins_shards == 1
-                                        or lt is not None):
-        from jax import shard_map
-
-        from ..opacity.hotpath import kappa_model_from_layer_tables
-
-        bins_axis = BINS if n_bins_shards > 1 else ""
-        cfg_sm = cfg._replace(bins_axis=bins_axis)
-
-        if lt is not None:
-            lt_outer = lt
-            mmr_fn = kappa_all.mmr_fn
-
-            def run(T0, consts_in, tab_in):
-                # rebuild the kappa closure over the per-shard table
-                # slice (closures may not capture sharded arrays) —
-                # through the same shared builder, so the engine hooks
-                # cannot drift from the single-process path
-                k_all = kappa_model_from_layer_tables(
-                    lt_outer._replace(tab=tab_in), mmr_fn, chem,
-                    consts_in.sigma_scat)
-                return solve_rc_batched(T0, consts_in, params, k_all,
-                                        cfg_sm)
-
-            consts_specs = RTConstants(
-                lam_cm=P(BINS), trapz_w=P(BINS), pressures=P(),
-                sigma_scat=P(BINS), F_toa=P(BINS))
-            out_specs = RTResult(
-                flux=P(COLUMNS, BINS),
-                final_temps=P(COLUMNS),
-                temp_history=P(COLUMNS),
-                n_history=P(COLUMNS),
-                dtaus=P(COLUMNS, None, BINS),
-                F_up=P(COLUMNS, None, BINS),
-                F_down=P(COLUMNS, None, BINS),
-                n_iterations=P(COLUMNS),
-                converged=P(COLUMNS),
-                max_dT_history=P(COLUMNS),
-                loop_temps=P(COLUMNS),
-                loop_F_up=P(COLUMNS, None, BINS),
-                loop_F_down=P(COLUMNS, None, BINS),
-            )
-            fn = shard_map(run, mesh=mesh,
-                           in_specs=(P(COLUMNS), consts_specs,
-                                     P(None, None, BINS)),
-                           out_specs=out_specs, check_vma=False)
-            jfn = jax.jit(fn)
-            return lambda T0: jfn(_place(T0), consts, lt.tab)
-
-        fn = shard_map(
-            partial(solve_rc_batched, consts=consts, params=params,
-                    kappa_all=kappa_all, cfg=cfg),
-            mesh=mesh, in_specs=P(COLUMNS),
-            out_specs=RTResult(*([P(COLUMNS)] * len(RTResult._fields))),
-            check_vma=False,
-        )
-        jfn = jax.jit(fn)
-        return lambda T0: jfn(_place(T0))
-
-    if engine.startswith("pallas"):
-        # single-T-point tables have no layer factorization and Pallas
-        # cannot ride GSPMD across bins shards -- fall back.
-        cfg = cfg._replace(engine="xla")
-
     batched = jax.jit(
         jax.vmap(partial(solve_rc, consts=consts, params=params,
                          kappa_all=kappa_all, cfg=cfg)),
         in_shardings=(cols,),
     )
-    return lambda T0: batched(_place(T0))
+    return lambda T0: batched(jax.device_put(jnp.asarray(T0), cols))
 
 
 def solve_population(init_temps, grid, planets,
@@ -368,43 +293,21 @@ def solve_population(init_temps, grid, planets,
     independent single-planet solves (cross-checked in
     tests/test_parallel.py).
 
-    Engines: runs through ``solve_rc_batched`` in per-column mode —
-    per-planet F_toa / g / alpha reach the fused Pallas sweep kernels
-    directly (F_toa as (C, W) blocks, gravity as a (C, 1) reciprocal
-    broadcast on the shared pressure-difference rows), so a population
-    solves at the same per-chip throughput as a shared-planet batch
-    (measured within ~1.1x, see docs/design-notes.md).  ``mesh``
-    shards the population over the 'columns' axis.
+    Runs through ``solve_rc_batched`` in per-column mode: per-planet
+    F_toa rows and physics scalars are mapped with the sweeps.
+    ``mesh`` shards the population over the 'columns' axis.
     """
-    import numpy as np
-
     from ..rt.solver import solve_rc_batched
-    from ..stellar.irradiation import f_toa_np
 
+    pop_consts, params = _population_inputs(grid, planets)
     consts = grid._consts
     kappa_all = grid._kappa_fn
-    lam_cm = np.asarray(grid.rt_grid.lam_cm)
     dtype = consts.lam_cm.dtype
-    f_toa = jnp.asarray(
-        np.stack([f_toa_np(lam_cm, p.T_star, p.a_rstar)
-                  for p in planets]), dtype)              # (C, W)
-    g = jnp.asarray([p.g for p in planets], dtype)
-    alpha = jnp.asarray([p.alpha for p in planets], dtype)
-    m_bar = planets[0].m_bar
-    if any(abs(p.m_bar - m_bar) > 1e-30 for p in planets):
-        raise ValueError(
-            "solve_population shares composition: all planets must "
-            "have the same m_bar (it sets chemistry + Rayleigh); "
-            "build separate grids for different compositions")
-
     init_temps = jnp.asarray(init_temps, dtype)
-    params = PhysicsParams(g=g, m_bar=jnp.asarray(m_bar, dtype),
-                           alpha=alpha, n_dof=5)
 
     if mesh is None:
-        return solve_rc_batched(init_temps,
-                                consts._replace(F_toa=f_toa),
-                                params, kappa_all, cfg)
+        return solve_rc_batched(init_temps, pop_consts, params, kappa_all,
+                                cfg)
 
     if mesh.shape[BINS] > 1:
         raise ValueError(
@@ -417,7 +320,8 @@ def solve_population(init_temps, grid, planets,
     # vary the planets: cache it on the grid-static closure inputs
     # kappa_all is in the key too: re-running grid.load_opacities()
     # swaps grid._kappa_fn on the SAME grid object
-    key = (grid, kappa_all, float(m_bar), cfg, mesh)
+    m_bar = float(params.m_bar)
+    key = (grid, kappa_all, m_bar, cfg, mesh)
     jfn = _POPULATION_CACHE.get(key)
     if jfn is None:
         def run(T0, ftoa_c, g_c, alpha_c):
@@ -435,8 +339,32 @@ def solve_population(init_temps, grid, planets,
         )
         jfn = _POPULATION_CACHE.put(key, jax.jit(fn))
     cols = NamedSharding(mesh, P(COLUMNS))
-    init_temps = jax.device_put(init_temps, cols)
-    f_toa = jax.device_put(f_toa, cols)
-    g = jax.device_put(g, cols)
-    alpha = jax.device_put(alpha, cols)
-    return jfn(init_temps, f_toa, g, alpha)
+    return jfn(*(jax.device_put(x, cols) for x in (
+        init_temps, pop_consts.F_toa, params.g, params.alpha)))
+
+
+def _population_inputs(grid, planets):
+    """Per-planet solver inputs of :func:`solve_population`: the grid's
+    constants with one F_toa row per planet, and (C,) gravity and
+    mixing-length arrays beside the shared m_bar."""
+    import numpy as np
+
+    from ..stellar.irradiation import f_toa_np
+
+    consts = grid._consts
+    lam_cm = np.asarray(grid.rt_grid.lam_cm)
+    dtype = consts.lam_cm.dtype
+    f_toa = jnp.asarray(
+        np.stack([f_toa_np(lam_cm, p.T_star, p.a_rstar)
+                  for p in planets]), dtype)              # (C, W)
+    m_bar = planets[0].m_bar
+    if any(abs(p.m_bar - m_bar) > 1e-30 for p in planets):
+        raise ValueError(
+            "solve_population shares composition: all planets must "
+            "have the same m_bar (it sets chemistry + Rayleigh); "
+            "build separate grids for different compositions")
+    params = PhysicsParams(
+        g=jnp.asarray([p.g for p in planets], dtype),
+        m_bar=jnp.asarray(m_bar, dtype),
+        alpha=jnp.asarray([p.alpha for p in planets], dtype), n_dof=5)
+    return consts._replace(F_toa=f_toa), params

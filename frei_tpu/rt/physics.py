@@ -6,8 +6,8 @@ Eqs. 18-28).  The reference evaluates these one layer at a time on
 astropy Quantities with Python ``if`` branches on quantity signs
 (`twostream.py:32-43,285-287`); here every function is elementwise over
 whole (layers,) or (columns, layers) arrays with the branches as
-``jnp.where`` selects — required for jit and for the MXU-friendly
-batched solver.  All formulas are numerically identical for the same
+``jnp.where`` selects — required for jit and for the batched
+solver.  All formulas are numerically identical for the same
 inputs.
 """
 

@@ -25,8 +25,8 @@ line) are:
 This turns each sweep into: [hoisted kappa for all layers] ->
 [two-stream couplers for all layers] -> [one affine prefix scan over
 layers] -> [vectorized flux/temperature postprocessing].  The prefix
-scan runs either as ``lax.scan`` (the default — fastest on TPU for
-typical layer counts, see SolverConfig.associative) or
+scan runs either as ``lax.scan`` (the default, see
+SolverConfig.associative) or
 ``lax.associative_scan`` (log-depth, for deep grids); both reproduce
 the reference's Gauss-Seidel-like update ordering exactly.
 
@@ -81,9 +81,10 @@ class SweepResult(NamedTuple):
 
 def bolometric_flux(flux, trapz_w):
     """``np.trapz(flux, lam)`` as a quadrature dot product
-    (`twostream.py:16-20`); on batched spectra this is a matvec that
-    XLA maps onto the MXU."""
-    return flux @ trapz_w
+    (`twostream.py:16-20`).  The precision is pinned: this sum drives
+    every temperature update, and a float32 dot left at the default
+    may run in TF32 on a GPU (about three decimal digits)."""
+    return jnp.matmul(flux, trapz_w, precision=lax.Precision.HIGHEST)
 
 
 def _affine_prefix_assoc(A, c, init):

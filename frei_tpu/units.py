@@ -2,7 +2,7 @@
 
 The reference package carries `astropy.units.Quantity` objects through
 every function signature and validates them with ``@u.quantity_input``
-(`/root/reference/frei/core.py:68-70,113-116`).  Inside a TPU program
+(reference `frei/core.py:68-70,113-116`).  Inside a jitted program
 that is a non-starter: XLA traces unitless arrays.  frei_tpu therefore
 enforces units *only at the API boundary* and strips everything to a
 documented canonical CGS system (see ``frei_tpu.constants``) before any

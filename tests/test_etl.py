@@ -113,11 +113,10 @@ def test_native_kernel_matches_xla():
 
 def test_auto_engine_resolution(monkeypatch):
     """engine='auto' picks the C++ host engine on EVERY backend — the
-    ETL streams a host memmap, and the round-4 chip measurement
-    showed per-chunk host->device transfers dwarf any device-kernel
-    win (native 0.55 s vs xla 15.2 s / matmul 23.2 s on the full
-    streamed path; docs/opacities.md) — falling back to the portable
-    XLA path only when no C++ toolchain exists."""
+    ETL streams a host memmap, so a device engine pays a host->device
+    transfer per chunk — falling back to the portable XLA path only
+    when no C++ toolchain exists.  The removed Pallas engine name is
+    refused like any unknown name."""
     from frei_tpu.opacity.etl import resolve_rebin_engine
     assert resolve_rebin_engine("xla") == "xla"       # explicit wins
     assert resolve_rebin_engine("matmul") == "matmul"  # opt-in stays
@@ -129,6 +128,8 @@ def test_auto_engine_resolution(monkeypatch):
     # a typo must not silently run the slowest engine
     with pytest.raises(ValueError, match="unknown rebin engine"):
         resolve_rebin_engine("matmull")
+    with pytest.raises(ValueError, match="unknown rebin engine"):
+        resolve_rebin_engine("pallas")
 
 
 def test_reload_preserves_chemistry():
@@ -229,8 +230,7 @@ def test_engines_agree(cache_env):
                          n_hr=20000)
     grid = make_rt_grid(n_wl_bins=32, n_layers=4)
     t_xla = binned_opacity_tables(grid, engine="xla", cache=False)
-    engines = ["pallas"] if os.environ.get("FREI_TPU_TEST_PALLAS") else []
-    engines.append("matmul")
+    engines = ["matmul"]
     if native_available():
         engines.append("native")
     for eng in engines:

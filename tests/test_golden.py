@@ -11,7 +11,7 @@ fixture at scale_factor = 1, run a 1-timestep emission spectrum
 * effective temperature  ~ T_ref within 200 K
 
 Run in float64 (full parity with the reference's numpy pipeline) and in
-float32 (the TPU compute dtype) to demonstrate the goldens survive
+float32 (the device compute dtype) to demonstrate the goldens survive
 reduced precision.
 """
 

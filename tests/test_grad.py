@@ -11,7 +11,7 @@ gradient-based retrieval.  Pinned here:
   freezing (the scan keeps running frozen);
 * gradients w.r.t. gravity / mixing-length / initial temperatures /
   per-column irradiation match central finite differences in float64;
-* the Pallas engines (no autodiff rules) are rejected loudly.
+* removed engine names are rejected loudly.
 """
 
 import jax
@@ -158,28 +158,20 @@ def test_grid_spectrum_fn_grad_per_column_irradiation(setup):
     np.testing.assert_allclose(float(gg[0]), float(dg), rtol=1e-5)
 
 
-@pytest.mark.slow   # two differentiable-scan compiles (~23 s); the
-                    # loud bins_axis guard below covers the fast lane
-def test_differentiable_ensemble_bins_sharded(setup, monkeypatch):
-    """Round-4 review regression: ``solve_ensemble`` with
-    ``differentiable=True`` and ``engine='auto'`` on a TPU backend used
-    to resolve the engine WITHOUT ``cfg.differentiable`` — the outer
-    call picked the Pallas shard_map branch (setting ``bins_axis``)
-    while the inner solve re-resolved to 'xla', whose sweeps never
-    psum the bolometric quadrature across bins shards: silently wrong
-    physics (flux off ~1e-2).  Resolution must see ``differentiable``
-    so the GSPMD path is taken; the xla engine now also rejects
-    ``bins_axis`` loudly (rt/solver.py)."""
+@pytest.mark.slow   # two differentiable-scan compiles (~23 s)
+def test_differentiable_ensemble_bins_sharded(setup):
+    """``solve_ensemble`` with ``differentiable=True`` on a bins-sharded
+    mesh runs under GSPMD, which psums the bolometric quadrature across
+    bins shards: it must equal the unsharded solve (a missing psum is
+    silently wrong physics, flux off ~1e-2)."""
     planet, grid, T0 = setup
     from frei_tpu.parallel import make_mesh, solve_ensemble
     kw = dict(n_timesteps=2, n_zero_crossings=10 ** 6,
               convergence_dT=0.0, differentiable=True)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     res = solve_ensemble(
         T0, grid._consts, planet.physics_params(), grid.opacities,
         grid.chemistry, SolverConfig(engine="auto", **kw),
         mesh=make_mesh(1, 4, devices=jax.devices()[:4]))
-    monkeypatch.undo()
     ref = solve_rc_batched(T0, grid._consts, planet.physics_params(),
                            grid._kappa_fn,
                            SolverConfig(engine="xla", **kw))
@@ -189,21 +181,12 @@ def test_differentiable_ensemble_bins_sharded(setup, monkeypatch):
                                np.asarray(ref.final_temps), rtol=1e-9)
 
 
-def test_xla_engine_rejects_bins_axis(setup):
-    """Defense-in-depth for the same bug class: running the xla
-    engine inside a shard_map bins-sharded region would silently skip
-    the cross-shard quadrature psum — it must refuse."""
-    planet, grid, T0 = setup
-    with pytest.raises(ValueError, match="bins"):
-        solve_rc_batched(
-            T0, grid._consts, planet.physics_params(), grid._kappa_fn,
-            SolverConfig(engine="xla", bins_axis="bins", n_timesteps=1))
-
-
 def test_differentiable_rejects_pallas_engines(setup):
+    """The Pallas engine names were removed: a differentiable solve
+    that names one raises instead of running something else."""
     planet, grid, T0 = setup
     for engine in ["pallas", "pallas-interpret", "pallas-loop"]:
-        with pytest.raises(ValueError, match="autodiff"):
+        with pytest.raises(ValueError, match="removed"):
             solve_rc_batched(
                 T0, grid._consts, planet.physics_params(),
                 grid._kappa_fn,

@@ -1,13 +1,14 @@
-"""Silent-demotion guard: every solver entry point must advertise the
-fused-engine hooks whenever the opacity stack / chemistry support them.
+"""The hot-loop kappa model is wired in one place.
 
 The hot-loop kappa/chemistry wiring used to exist in three hand-rolled
-copies; a missed ``layer_parts`` / ``iteration_hook`` attribute in one
-silently demoted that entry point to the gather path (the 1.93x
+copies, and a copy that missed the layer-factored chemistry silently
+fell back to the per-iteration 2-D table gather (the 1.93x
 chemistry-in-loop regression class fixed in round 3).  The wiring now
 lives in one builder (frei_tpu/opacity/hotpath.py); these tests pin
-(a) the hooks on every entry point's kappa model and (b) that the
-entry points actually route through the shared builder.
+(a) that the factored model computes the same opacity as the generic
+bilinear lookup, (b) that table-mode chemistry reaches it through the
+factored evaluator and (c) that the entry points route through the
+shared builder.
 """
 
 import jax
@@ -18,6 +19,7 @@ import pytest
 from frei_tpu import Grid, Planet, load_example_opacity
 from frei_tpu.chemistry.fastchem import FastChemJAX
 from frei_tpu.opacity import hotpath
+from frei_tpu.opacity.tables import kappa_from_stack
 from frei_tpu.parallel import make_mesh, solve_ensemble
 from frei_tpu.rt.solver import SolverConfig
 
@@ -33,8 +35,8 @@ def _grid(chemistry=None):
                                  dtype=jnp.float64)
     if chemistry == "equilibrium":
         # small table, built once per test module: the full default
-        # (64, 32) build is a slow-lane cost and hook dispatch does
-        # not depend on table resolution
+        # (64, 32) build is a slow-lane cost and the wiring does not
+        # depend on table resolution
         if "chem" not in _SMALL_CHEM:
             _SMALL_CHEM["chem"] = FastChemJAX(
                 stack.species, planet.m_bar, mode="table",
@@ -44,55 +46,54 @@ def _grid(chemistry=None):
     return planet, grid
 
 
-def _assert_hooks(kappa_all):
-    ohs, tab = kappa_all.layer_parts
-    assert tab.ndim == 3            # (L, nT, W) layer table
-    temps_axis, tab2, chem = kappa_all.iteration_hook
-    assert tab2 is tab
-    assert kappa_all.layer_tables.tab is tab
-    # the attached mmr_fn must be callable on a layer-temps vector
-    L = tab.shape[0]
-    mmr = kappa_all.mmr_fn(jnp.full((L,), 2000.0))
-    assert np.all(np.isfinite(np.asarray(mmr)))
-
-
 @pytest.mark.parametrize("chemistry", [None, "equilibrium"])
-def test_grid_kappa_model_advertises_hooks(chemistry):
+def test_grid_kappa_model_matches_generic_lookup(chemistry):
+    """The layer-factored model equals the generic bilinear lookup with
+    the chemistry's own ``mmr`` (float32 rounding of the table-mode
+    chemistry evaluator sets the tolerance)."""
     _, grid = _grid(chemistry)
-    _assert_hooks(grid._kappa_fn)
+    press = grid._consts.pressures
+    T = jnp.asarray(np.asarray(grid.rt_grid.init_temperatures) * 0.97)
+    got = grid._kappa_fn(T, press)
+    want, _ = kappa_from_stack(grid.opacities,
+                               grid.chemistry.mmr(T, press), T, press,
+                               grid._consts.sigma_scat)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-5)
 
 
 def test_equilibrium_grid_uses_layer_factored_chemistry():
     """Table-mode FastChem must reach the hot loop through the
-    gather-free layer-factored evaluator, not the generic mmr()."""
+    gather-free layer-factored evaluator, not the generic mmr():
+    chem.mmr is replaced with a bomb after the model is built."""
     _, grid = _grid("equilibrium")
     chem = grid.chemistry
     assert isinstance(chem, FastChemJAX) and chem.supports_layer_factoring()
     press = grid._consts.pressures
-    T = jnp.full(press.shape, 2100.0)
-    np.testing.assert_allclose(
-        np.asarray(grid._kappa_fn.mmr_fn(T)),
-        np.asarray(chem.layer_mmr_interp(press)(T)), rtol=1e-12)
+    kappa = hotpath.build_kappa_model(grid.opacities, chem, press,
+                                      grid._consts.sigma_scat)
+
+    def bomb(*a, **k):
+        raise AssertionError("generic chem.mmr called in the hot loop")
+
+    real_mmr = chem.mmr
+    chem.mmr = bomb
+    try:
+        k = kappa(jnp.full(press.shape, 2100.0), press)
+    finally:
+        chem.mmr = real_mmr
+    assert np.all(np.isfinite(np.asarray(k)))
 
 
 def _recording_hotpath(monkeypatch):
     calls = []
     real_build = hotpath.build_kappa_model
-    real_from_lt = hotpath.kappa_model_from_layer_tables
 
     def rec_build(*a, **kw):
-        out = real_build(*a, **kw)
-        calls.append(("build", hasattr(out, "layer_parts")))
-        return out
-
-    def rec_from_lt(*a, **kw):
-        out = real_from_lt(*a, **kw)
-        calls.append(("rebuild", hasattr(out, "layer_parts")))
-        return out
+        calls.append("build")
+        return real_build(*a, **kw)
 
     monkeypatch.setattr(hotpath, "build_kappa_model", rec_build)
-    monkeypatch.setattr(hotpath, "kappa_model_from_layer_tables",
-                        rec_from_lt)
     return calls
 
 
@@ -100,14 +101,12 @@ def test_grid_routes_through_shared_builder(monkeypatch):
     """api.Grid must construct its kappa model via opacity.hotpath —
     a hand-rolled copy would dodge this recorder and fail."""
     calls = _recording_hotpath(monkeypatch)
-    planet, grid = _grid()
-    assert ("build", True) in calls
+    _grid()
+    assert "build" in calls
 
 
-@pytest.mark.slow   # interpret-mode sharded-solve compile (~12 s)
 def test_ensemble_routes_through_shared_builder(monkeypatch):
-    """parallel.solve_ensemble (outer wiring + the in-shard rebuild
-    inside shard_map) must route through opacity.hotpath too."""
+    """parallel.solve_ensemble must route through opacity.hotpath too."""
     calls = _recording_hotpath(monkeypatch)
     planet, grid = _grid()
     calls.clear()
@@ -116,46 +115,24 @@ def test_ensemble_routes_through_shared_builder(monkeypatch):
     T0 = jnp.asarray(np.stack([base, base * 1.02]))
     solve_ensemble(T0, grid._consts, planet.physics_params(),
                    grid.opacities, grid.chemistry,
-                   SolverConfig(n_timesteps=1, engine="pallas-interpret"),
+                   SolverConfig(n_timesteps=1),
                    mesh=make_mesh(2, 1, devices=jax.devices()[:2]))
-    assert ("build", True) in calls          # outer wiring
-    assert ("rebuild", True) in calls        # in-shard rebuild
-
-
-def test_exact_mode_chemistry_gets_no_iteration_hook():
-    """Exact-mode FastChemJAX has no ``layer_ln_mmr_tables`` to serve
-    (table mode only); the builder must leave ``iteration_hook`` unset
-    so the mega-kernel engines raise their descriptive guard instead
-    of dying inside the kernel pack build with a bare AttributeError
-    (round-4 review)."""
-    from frei_tpu.rt.solver import solve_rc_batched
-
-    planet, grid = _grid()
-    stack = grid.opacities
-    chem = FastChemJAX(stack.species, planet.m_bar, mode="exact")
-    k = hotpath.build_kappa_model(stack, chem, grid._consts.pressures,
-                                  grid._consts.sigma_scat)
-    assert k.iteration_hook is None
-    assert k.layer_parts is not None        # fused sweeps still work
-    T0 = jnp.asarray(np.asarray(grid.rt_grid.init_temperatures)[None])
-    with pytest.raises(ValueError, match="layer-factored"):
-        solve_rc_batched(T0, grid._consts, planet.physics_params(), k,
-                         SolverConfig(engine="pallas-loop",
-                                      n_timesteps=1))
+    assert "build" in calls
 
 
 def test_single_T_point_stack_falls_back():
     """A stack with one temperature sample has nothing to factor: the
-    builder must return the generic path without engine hooks."""
+    builder must return the generic path."""
 
     _, grid = _grid()
     stack = grid.opacities
     one_t = stack._replace(values=stack.values[:, :1],
                            temps=stack.temps[:1])
-    k = hotpath.build_kappa_model(one_t, grid.chemistry,
-                                  grid._consts.pressures,
+    press = grid._consts.pressures
+    k = hotpath.build_kappa_model(one_t, grid.chemistry, press,
                                   grid._consts.sigma_scat)
-    assert not hasattr(k, "layer_parts")
-    out = k(jnp.full(grid._consts.pressures.shape, 2000.0),
-            grid._consts.pressures)
-    assert np.all(np.isfinite(np.asarray(out)))
+    T = jnp.full(press.shape, 2000.0)
+    want, _ = kappa_from_stack(one_t, grid.chemistry.mmr(T, press), T,
+                               press, grid._consts.sigma_scat)
+    np.testing.assert_array_equal(np.asarray(k(T, press)),
+                                  np.asarray(want))

@@ -129,7 +129,7 @@ def test_kappa_matches_reference_structure():
 
 
 def test_interp_onehot_matches_gather():
-    """The MXU one-hot interpolation engine equals the gather engine
+    """The one-hot interpolation engine equals the gather engine
     to float32 roundoff, including out-of-range zero fill and vmap
     batching (the solver's call pattern)."""
     import jax

@@ -87,35 +87,6 @@ def test_early_convergence_freezing(setup):
         assert int(res.n_iterations[c]) == int(one.n_iterations)
 
 
-@pytest.mark.slow
-# each variant compiles a whole shard_map + Pallas interpret program
-# (~0.5 min) — slow lane; the fast lane keeps shard_map+pallas smoke
-# coverage via tests/test_hotpath.py and the driver's dryrun runs the
-# full factorization sweep incl. the bins psum path
-@pytest.mark.parametrize("mesh_shape", [(8, 1), (4, 2)])
-def test_ensemble_pallas_shard_map(setup, mesh_shape):
-    """The fused Pallas engine runs per shard under shard_map on
-    columns-only AND bins-sharded meshes (per-shard partial bolometric
-    quadratures completed by one psum per sweep); results match the
-    per-column XLA solves."""
-    planet, grid = setup
-    T0 = _ensemble_inputs(grid, 16)
-    mesh = make_mesh(*mesh_shape)
-    cfg = SolverConfig(n_timesteps=3, engine="pallas-interpret")
-    res = solve_ensemble(jnp.asarray(T0), grid._consts,
-                         planet.physics_params(), grid.opacities,
-                         grid.chemistry, cfg, mesh=mesh)
-    assert res.flux.shape == (16, 64)
-    from frei_tpu.rt.solver import solve_rc
-    for c in [0, 5, 15]:
-        one = solve_rc(jnp.asarray(T0[c]), grid._consts,
-                       planet.physics_params(), grid._kappa_fn,
-                       SolverConfig(n_timesteps=3))
-        np.testing.assert_allclose(res.flux[c], one.flux, rtol=1e-7)
-        np.testing.assert_allclose(res.final_temps[c], one.final_temps,
-                                   rtol=1e-8)
-
-
 def test_ensemble_solver_reuse(setup, monkeypatch):
     """Repeat calls with the SAME input objects must reuse the placed
     tables and compiled sharded solver instead of rebuilding per call
@@ -264,36 +235,6 @@ def _population_reference(grid_kw, planets, T0, cfg):
     return out
 
 
-@pytest.mark.slow   # interpret-mode population engine (xla-engine
-# population + the dryrun population leg stay in the fast lane)
-def test_population_pallas_engine(setup):
-    """Per-planet F_toa / g / alpha reach the FUSED Pallas sweep
-    kernels (per-column (C, W) F_toa blocks + (C, 1) 1/g broadcast):
-    population results match independent per-planet solves at the
-    same tolerances as the shared-planet Pallas engine tests."""
-    from frei_tpu.parallel import solve_population
-
-    planet, grid = setup
-    planets = _population(3)
-    T0 = _ensemble_inputs(grid, 3)
-    cfg = SolverConfig(n_timesteps=4, engine="pallas-interpret")
-    res = solve_population(jnp.asarray(T0), grid, planets, cfg)
-    assert res.flux.shape == (3, 64)
-
-    grid_kw = dict(n_wl_bins=64, n_layers=10, T_ref=2400.0,
-                   dtype=jnp.float64)
-    ones = _population_reference(grid_kw, planets, T0,
-                                 SolverConfig(n_timesteps=4))
-    for c, one in enumerate(ones):
-        np.testing.assert_allclose(res.flux[c], np.asarray(one.flux),
-                                   rtol=1e-7)
-        np.testing.assert_allclose(res.final_temps[c],
-                                   np.asarray(one.final_temps),
-                                   rtol=1e-8)
-        np.testing.assert_allclose(res.dtaus[c], np.asarray(one.dtaus),
-                                   rtol=1e-9)
-
-
 @pytest.mark.slow
 def test_population_sharded_mesh(setup):
     """Population solve sharded over the 'columns' mesh axis equals
@@ -321,21 +262,6 @@ def test_population_sharded_mesh(setup):
                          mesh=make_mesh(4, 2))
 
 
-def test_population_rejects_mega_kernel_engines(setup):
-    """The whole-iteration / whole-loop kernels bake F_toa and g into
-    their constant packs — per-column params must be rejected loudly,
-    not silently shared."""
-    from frei_tpu.parallel import solve_population
-
-    planet, grid = setup
-    planets = _population(2)
-    T0 = _ensemble_inputs(grid, 2)
-    for engine in ("pallas-iteration-interpret", "pallas-loop-interpret"):
-        with pytest.raises(ValueError, match="per-column"):
-            solve_population(jnp.asarray(T0), grid, planets,
-                             SolverConfig(n_timesteps=2, engine=engine))
-
-
 def test_population_rejects_mixed_composition(setup):
     from frei_tpu import Planet
     from frei_tpu.parallel import solve_population
@@ -346,34 +272,6 @@ def test_population_rejects_mixed_composition(setup):
     T0 = _ensemble_inputs(grid, 2)
     with pytest.raises(ValueError, match="m_bar"):
         solve_population(jnp.asarray(T0), grid, planets)
-
-
-@pytest.mark.slow
-def test_ensemble_loop_engine_columns_mesh(setup):
-    """The whole-loop kernel engine works under shard_map on a
-    columns-only mesh (it rejects bins-sharded meshes — no in-kernel
-    psum) and matches per-column solves."""
-    planet, grid = setup
-    T0 = _ensemble_inputs(grid, 16)
-    mesh = make_mesh(8, 1)
-    cfg = SolverConfig(n_timesteps=3, engine="pallas-loop-interpret")
-    res = solve_ensemble(jnp.asarray(T0), grid._consts,
-                         planet.physics_params(), grid.opacities,
-                         grid.chemistry, cfg, mesh=mesh)
-    from frei_tpu.rt.solver import solve_rc
-    for c in [0, 9, 15]:
-        one = solve_rc(jnp.asarray(T0[c]), grid._consts,
-                       planet.physics_params(), grid._kappa_fn,
-                       SolverConfig(n_timesteps=3))
-        np.testing.assert_allclose(res.flux[c], one.flux, rtol=1e-7)
-    # bins-sharded mesh must be rejected loudly, not silently wrong
-    with pytest.raises(ValueError, match="pallas-loop"):
-        solve_ensemble(jnp.asarray(T0), grid._consts,
-                       planet.physics_params(), grid.opacities,
-                       grid.chemistry,
-                       SolverConfig(n_timesteps=2,
-                                    engine="pallas-loop-interpret"),
-                       mesh=make_mesh(4, 2))
 
 
 @pytest.mark.slow   # chem table build; fast-lane dispatch coverage

@@ -6,7 +6,6 @@ import numpy as np
 import pytest
 
 from frei_tpu.ops.rebin import bin_codes, reference_bin_scaling, resort_rebin
-from frei_tpu.ops.rebin_pallas import resort_rebin_pallas
 
 
 def trapz_in_bins_oracle(values, x, edges):
@@ -77,29 +76,17 @@ def test_reference_scaling(problem):
                                rtol=1e-12)
 
 
-@pytest.mark.slow   # opt-in negative-result engine (docs/opacities.md)
-def test_pallas_kernel_matches_xla(problem):
-    x, edges, values = problem
-    want = np.asarray(resort_rebin(
-        jnp.asarray(values, jnp.float32), jnp.asarray(x),
-        jnp.asarray(edges)))
-    got = np.asarray(resort_rebin_pallas(
-        jnp.asarray(values), jnp.asarray(x), jnp.asarray(edges),
-        interpret=True))
-    np.testing.assert_allclose(got, want, rtol=1e-4)
-
-
-@pytest.mark.slow   # opt-in negative-result engine (docs/opacities.md)
-def test_pallas_kernel_padding_edges():
-    """Ragged sizes: rows/samples not multiples of the tile sizes."""
+def test_resort_rebin_ragged_sizes():
+    """Ragged sizes (odd rows and samples, edges past both ends of the
+    samples) match the loop oracle in float32."""
     rng = np.random.RandomState(9)
     x = np.sort(rng.uniform(0.0, 1.0, 777))
     edges = np.linspace(-0.01, 1.01, 12)
     values = rng.uniform(0, 1, (3, 777))
     want = trapz_in_bins_oracle(values, x, edges)
-    got = np.asarray(resort_rebin_pallas(
-        jnp.asarray(values), jnp.asarray(x), jnp.asarray(edges),
-        interpret=True))
+    got = np.asarray(resort_rebin(
+        jnp.asarray(values, jnp.float32), jnp.asarray(x),
+        jnp.asarray(edges)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
 
 
@@ -144,7 +131,7 @@ def test_grouped_aggregate_trapz_alias():
 
 @pytest.mark.slow   # opt-in negative-result engine (docs/opacities.md)
 def test_matmul_engine_matches_oracle(problem):
-    """The block-banded MXU formulation (static x/edges -> scan of
+    """The block-banded matmul formulation (static x/edges -> scan of
     dense per-tile dots, ops/rebin_matmul.py) against the float64
     transcription oracle — float64 input must match to summation
     order, float32 to rounding."""

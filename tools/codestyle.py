@@ -18,7 +18,8 @@ import sys
 from pathlib import Path
 
 MAX_LEN = 88
-ROOTS = ("frei_tpu", "tests", "tools", "bench.py", "__graft_entry__.py")
+ROOTS = ("frei_tpu", "tests", "tools", "bench.py", "chip_smoke.py",
+         "__graft_entry__.py")
 STAR_IMPORT = re.compile(r"^\s*from\s+\S+\s+import\s+\*")
 
 

@@ -25,8 +25,8 @@ sys.path.insert(0, str(repo / "tests"))
 
 def main():
     import jax
-    # float64 parity is a CPU exercise — TPU backends emulate f64 with
-    # LSB-level round-trip error
+    # float64 parity is a CPU exercise: the reference is a float64
+    # host computation
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp

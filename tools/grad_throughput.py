@@ -1,20 +1,15 @@
-"""Differentiable-path cost measurement (real TPU).
+"""Differentiable-path cost measurement on one device.
 
-Produces the numbers quoted in docs/retrieval.md ("Measured cost on
-the v5e chip"): production fused-Pallas forward vs the differentiable
-XLA forward vs a full ``value_and_grad``, at the headline spectral
-shape (500 bins x 30 layers x 20 fixed iterations, float32).
+The production forward (``lax.while_loop``) vs the differentiable
+fixed-horizon forward vs a full ``value_and_grad``, at the headline
+spectral shape (500 bins x 30 layers x 20 fixed iterations, float32),
+all on the XLA sweep engine.  It also asserts gradient finiteness at
+production shape and dtype, which the float64 small-shape tests never
+reach (this is how the round-5 float32 NaN-gradient bug was found).
 
-The gradient leg runs at ``--grad-columns`` (default 6144): the
-backward pass stores the scan carry per remat-chunk boundary, and
-8192 columns exceeds a 16 GB v5e by ~1.2 GB (measured; see
-``SolverConfig.remat_chunk``).  This tool is also how the round-5
-float32 NaN-gradient bug was found — it asserts gradient finiteness
-at production shape/dtype, which the float64 small-shape tests can
-never reach.
+Usage::
 
-Usage (on the TPU host):
-    python tools/grad_throughput.py [--columns 8192] [--grad-columns 6144]
+    python tools/grad_throughput.py [--columns 8192] [--grad-columns 8192]
 """
 
 from __future__ import annotations
@@ -34,7 +29,7 @@ N_BINS, N_LAYERS, N_ITERS = 500, 30, 20
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--columns", type=int, default=8192)
-    ap.add_argument("--grad-columns", type=int, default=6144)
+    ap.add_argument("--grad-columns", type=int, default=8192)
     args = ap.parse_args()
 
     import jax
@@ -70,24 +65,25 @@ def main():
             walls.append(time.perf_counter() - t0)
         return min(walls), out
 
-    def flux_fn(engine, differentiable):
-        cfg = SolverConfig(engine=engine,
-                           differentiable=differentiable, **kw)
+    def flux_fn(differentiable):
+        cfg = SolverConfig(differentiable=differentiable, **kw)
         return jax.jit(lambda T: solve_rc_batched(
             T, grid._consts, p, grid._kappa_fn, cfg).flux)
 
+    dev = jax.devices()[0]
+    print(f"device={dev.platform} kind={dev.device_kind!r}")
     B = args.columns
-    w_pal, _ = timed(flux_fn("pallas", False), T0_of(B))
-    print(f"forward pallas        B={B}: {w_pal:.4f} s  "
-          f"{B * N_BINS / w_pal / 1e6:.2f}M cols*bins/s")
-    w_dif, _ = timed(flux_fn("xla", True), T0_of(B))
-    print(f"forward xla-diff      B={B}: {w_dif:.4f} s  "
+    w_fwd, _ = timed(flux_fn(False), T0_of(B))
+    print(f"forward while-loop    B={B}: {w_fwd:.4f} s  "
+          f"{B * N_BINS / w_fwd / 1e6:.2f}M cols*bins/s")
+    w_dif, _ = timed(flux_fn(True), T0_of(B))
+    print(f"forward differentiable B={B}: {w_dif:.4f} s  "
           f"{B * N_BINS / w_dif / 1e6:.2f}M  "
-          f"({w_dif / w_pal:.2f}x pallas fwd)")
+          f"({w_dif / w_fwd:.2f}x the while-loop forward)")
 
     Bg = args.grad_columns
-    f = flux_fn("xla", True)
-    loss = lambda T: jnp.sum(f(T) ** 2) / 1e26          # noqa: E731
+    f = flux_fn(True)
+    loss = lambda T: jnp.sum((f(T) / 1e13) ** 2)        # noqa: E731
     g = jax.jit(jax.value_and_grad(loss))
     w_g, (v, grads) = timed(g, T0_of(Bg))
     finite = bool(np.all(np.isfinite(np.asarray(grads))))
@@ -103,14 +99,14 @@ def main():
     from frei_tpu.rt.physics import PhysicsParams
     ftoa = jnp.broadcast_to(grid._consts.F_toa, (Bg, N_BINS)) \
         * jnp.asarray(rng.uniform(0.8, 1.2, Bg), jnp.float32)[:, None]
-    cfg_d = SolverConfig(engine="xla", differentiable=True, **kw)
+    cfg_d = SolverConfig(differentiable=True, **kw)
 
     def loss_g(g_cols):
         par = PhysicsParams(g=g_cols, m_bar=p.m_bar, alpha=p.alpha,
                             n_dof=p.n_dof)
-        return jnp.sum(solve_rc_batched(
+        return jnp.sum((solve_rc_batched(
             T0_of(Bg), grid._consts._replace(F_toa=ftoa), par,
-            grid._kappa_fn, cfg_d).flux ** 2) / 1e26
+            grid._kappa_fn, cfg_d).flux / 1e13) ** 2)
 
     gp = jax.jit(jax.value_and_grad(loss_g))
     w_p, (_, gcols) = timed(gp, jnp.full(Bg, p.g, jnp.float32))
